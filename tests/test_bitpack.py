@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from deflate_tpu.ops import bitpack as BP
+from deflate_jax.ops import bitpack as BP
 
 
 def _read_bits(words, off, n):

@@ -5,7 +5,7 @@ import zlib
 import numpy as np
 import pytest
 
-import deflate_tpu
+import deflate_jax
 
 
 CASES = {
@@ -19,27 +19,27 @@ CASES = {
 @pytest.mark.parametrize("name", CASES)
 def test_gzip_roundtrip_and_stdlib_interop(name):
     data = CASES[name]
-    g = deflate_tpu.compress_gzip(data, 2)
+    g = deflate_jax.compress_gzip(data, 2)
     assert _gzip.decompress(g) == data            # stdlib reads ours
-    assert deflate_tpu.decompress_gzip(g) == data
+    assert deflate_jax.decompress_gzip(g) == data
     theirs = _gzip.compress(data, 6)
-    assert deflate_tpu.decompress_gzip(theirs) == data  # we read stdlib's
+    assert deflate_jax.decompress_gzip(theirs) == data  # we read stdlib's
 
 
 def test_gzip_crc_detected():
-    g = bytearray(deflate_tpu.compress_gzip(b"hello world" * 100, 2))
+    g = bytearray(deflate_jax.compress_gzip(b"hello world" * 100, 2))
     g[-6] ^= 0xFF                                 # corrupt CRC
-    with pytest.raises(deflate_tpu.InflateError):
-        deflate_tpu.decompress_gzip(bytes(g))
+    with pytest.raises(deflate_jax.InflateError):
+        deflate_jax.decompress_gzip(bytes(g))
 
 
 def test_gzip_multi_member():
     """RFC 1952 §2.2: concatenated members decode as concatenated output
     (`gzip -c a b > ab.gz`; the stdlib handles this and so must we)."""
     a, b, c = b"first member " * 200, b"", b"third member! " * 150
-    cat = (deflate_tpu.compress_gzip(a, 2) + deflate_tpu.compress_gzip(b, 1)
+    cat = (deflate_jax.compress_gzip(a, 2) + deflate_jax.compress_gzip(b, 1)
            + _gzip.compress(c, 6))
-    assert deflate_tpu.decompress_gzip(cat) == a + b + c
+    assert deflate_jax.decompress_gzip(cat) == a + b + c
     assert _gzip.decompress(cat) == a + b + c     # stdlib agrees on the file
 
 
@@ -47,7 +47,7 @@ def test_gzip_optional_header_fields():
     import zlib as _z
 
     data = b"payload with fancy header " * 64
-    raw = deflate_tpu.compress(data, 2)
+    raw = deflate_jax.compress(data, 2)
     # FLG: FTEXT|FHCRC|FEXTRA|FNAME|FCOMMENT = 0x1F
     hdr = bytearray([0x1F, 0x8B, 8, 0x1F, 0, 0, 0, 0, 0, 255])
     hdr += (4).to_bytes(2, "little") + b"XTRA"    # FEXTRA
@@ -57,23 +57,23 @@ def test_gzip_optional_header_fields():
     g = (bytes(hdr) + raw + (_z.crc32(data) & 0xFFFFFFFF).to_bytes(4, "little")
          + (len(data) & 0xFFFFFFFF).to_bytes(4, "little"))
     assert _gzip.decompress(g) == data
-    assert deflate_tpu.decompress_gzip(g) == data
+    assert deflate_jax.decompress_gzip(g) == data
     # corrupt the header CRC16 -> must be detected
     bad = bytearray(g)
     bad[len(hdr) - 2] ^= 0xFF
-    with pytest.raises(deflate_tpu.InflateError):
-        deflate_tpu.decompress_gzip(bytes(bad))
+    with pytest.raises(deflate_jax.InflateError):
+        deflate_jax.decompress_gzip(bytes(bad))
 
 
 def test_gzip_malformed_header_is_inflate_error():
-    """ADVICE r1: malformed FNAME (no NUL) used to raise bare ValueError."""
+    """Regression: malformed FNAME (no NUL) used to raise bare ValueError."""
     data = b"x" * 100
-    raw = deflate_tpu.compress(data, 2)
+    raw = deflate_jax.compress(data, 2)
     g = bytearray([0x1F, 0x8B, 8, 0x08, 0, 0, 0, 0, 0, 255])  # FNAME set
     g += b"unterminated-name-no-nul" + raw       # NUL never appears... or
     # may appear inside the payload; either way the parse must not crash
-    with pytest.raises(deflate_tpu.InflateError):
-        deflate_tpu.decompress_gzip(bytes(g))
+    with pytest.raises(deflate_jax.InflateError):
+        deflate_jax.decompress_gzip(bytes(g))
 
 
 def test_compress_many_matches_singles():
@@ -84,11 +84,11 @@ def test_compress_many_matches_singles():
         b"x",
         bytes(rng.integers(97, 123, 40000, dtype=np.uint8)),   # 2 blocks
     ]
-    outs = deflate_tpu.compress_many(bufs, 2)
+    outs = deflate_jax.compress_many(bufs, 2)
     assert len(outs) == len(bufs)
     for buf, enc in zip(bufs, outs):
         assert zlib.decompress(enc, -15) == buf
     # batched output must equal the single-stream encoder's
     for buf, enc in zip(bufs, outs):
-        assert enc == deflate_tpu.compress(buf, 2)
-    assert deflate_tpu.decompress_many(outs) == bufs
+        assert enc == deflate_jax.compress(buf, 2)
+    assert deflate_jax.decompress_many(outs) == bufs

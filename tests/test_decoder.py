@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import deflate_tpu
-from deflate_tpu.models import decoder as D
-from deflate_tpu.ops import bitpack as BP
+import deflate_jax
+from deflate_jax.models import decoder as D
+from deflate_jax.ops import bitpack as BP
 
 SPAN = (1 << 18) + 64
 
@@ -47,7 +47,7 @@ def test_own_encoder_streams():
     rng = np.random.default_rng(3)
     pat = rng.integers(0, 200, 401, dtype=np.uint8)
     data = np.tile(pat, 300).tobytes()
-    enc = deflate_tpu.compress(data, 2)
+    enc = deflate_jax.compress(data, 2)
     assert D.inflate_device(enc) == data
 
 
@@ -77,19 +77,21 @@ def test_corruption_detected():
 
 @pytest.mark.slow
 def test_reference_corpus_zlib_containers():
-    for name in ("weird.dat", "zlib.dat"):
-        z = open(f"/root/reference/{name}", "rb").read()
-        assert deflate_tpu.decompress_zlib(
+    import corpus
+
+    for level in (1, 9):
+        z = zlib.compress(corpus.picture_bitmap(), level)
+        assert deflate_jax.decompress_zlib(
             z, device=True, force_device=True) == zlib.decompress(z)
 
 
 def test_public_api_device_flag():
     data = b"device flag round trip " * 999
-    enc = deflate_tpu.compress(data, 2)
+    enc = deflate_jax.compress(data, 2)
     # hint-less device=True now redirects to host by default (r5);
     # the device path itself stays covered via force_device
     st = {}
-    assert deflate_tpu.decompress(enc, device=True, stats=st) == data
+    assert deflate_jax.decompress(enc, device=True, stats=st) == data
     assert st["redirected"] == "device_to_host_default"
-    assert deflate_tpu.decompress(enc, device=True,
+    assert deflate_jax.decompress(enc, device=True,
                                   force_device=True) == data

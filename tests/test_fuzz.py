@@ -4,8 +4,8 @@ import zlib
 import numpy as np
 import pytest
 
-import deflate_tpu
-from deflate_tpu import native as N
+import deflate_jax
+from deflate_jax import native as N
 
 
 def _gen(rng, kind, size):
@@ -41,34 +41,34 @@ KINDS = ["random", "lowent", "runs", "periodic", "mixed"]
              pytest.param("periodic", marks=pytest.mark.slow)])
 @pytest.mark.parametrize(
     "seed", [1, pytest.param(2, marks=pytest.mark.slow)])
-def test_tpu_path_fuzz(kind, seed):
+def test_device_path_fuzz(kind, seed):
     rng = np.random.default_rng(seed * 100 + KINDS.index(kind))
     size = int(rng.integers(1, 90000))
     data = _gen(rng, kind, size)
     for level in (1, 2):
-        enc = deflate_tpu.compress(data, level)
+        enc = deflate_jax.compress(data, level)
         assert zlib.decompress(enc, -15) == data, (kind, seed, level)
-        assert deflate_tpu.decompress(enc) == data
+        assert deflate_jax.decompress(enc) == data
 
 
 def test_truncated_streams_error_not_crash():
     """A truncated stream MUST surface as an error — never as silently
     wrong or short output (the reference zero-fills past EOF; we don't)."""
     data = b"truncation probe " * 500
-    enc = deflate_tpu.compress(data, 2)
+    enc = deflate_jax.compress(data, 2)
     for cut in (1, len(enc) // 2, len(enc) - 1):
-        with pytest.raises((deflate_tpu.InflateError, ValueError)):
-            deflate_tpu.decompress(enc[:cut])
+        with pytest.raises((deflate_jax.InflateError, ValueError)):
+            deflate_jax.decompress(enc[:cut])
 
 
 def test_truncated_streams_error_device_path():
     data = b"device truncation probe " * 400
-    enc = deflate_tpu.compress(data, 2)
+    enc = deflate_jax.compress(data, 2)
     for cut in (len(enc) // 3, len(enc) - 2):
-        with pytest.raises((deflate_tpu.InflateError, ValueError)):
-            from deflate_tpu.models import decoder as D
-            from deflate_tpu.models import host_inflate as HI
-            from deflate_tpu.ops import bitpack as BP
+        with pytest.raises((deflate_jax.InflateError, ValueError)):
+            from deflate_jax.models import decoder as D
+            from deflate_jax.models import host_inflate as HI
+            from deflate_jax.ops import bitpack as BP
             import jax.numpy as jnp
             # call the device decoder directly (no host fallback) so the
             # on-device truncation detection itself is what's under test
@@ -77,6 +77,6 @@ def test_truncated_streams_error_device_path():
                 jnp.asarray(words_np), np.int32(nbits),
                 (1 << 18) + 64, 1 << 15, 8)
             if bool(err):
-                raise deflate_tpu.InflateError("device decoder flagged error")
+                raise deflate_jax.InflateError("device decoder flagged error")
             raise AssertionError("device decoder accepted truncated stream")
 

@@ -7,8 +7,8 @@ import zlib
 import numpy as np
 import pytest
 
-import deflate_tpu
-from deflate_tpu import native as N
+import deflate_jax
+from deflate_jax import native as N
 
 from test_fuzz import KINDS, _gen
 
@@ -32,7 +32,7 @@ def test_native_path_fuzz(kind, seed):
     # the rest stay pure C.
     if seed == 3:
         enc = N.deflate(data, 2)
-        assert deflate_tpu.decompress(enc, device=True,
+        assert deflate_jax.decompress(enc, device=True,
                                       force_device=True) == data
 
 
@@ -60,7 +60,7 @@ def test_native_garbage_fuzz_seeds():
 
 
 def test_native_truncated_is_error_not_zero_fill():
-    """ADVICE r1: truncated fixed-Huffman streams used to return DT_OK
+    """Regression: truncated fixed-Huffman streams used to return DT_OK
     with zero-filled garbage; they must error."""
     if N.lib() is None:
         pytest.skip("no native lib")
@@ -72,7 +72,7 @@ def test_native_truncated_is_error_not_zero_fill():
 
 
 def test_native_empty_input_no_trailing_garbage():
-    """ADVICE r1: empty input used to emit two BFINAL blocks."""
+    """Regression: empty input used to emit two BFINAL blocks."""
     if N.lib() is None:
         pytest.skip("no native lib")
     for level in (0, 1, 2, 3):
@@ -85,11 +85,11 @@ def test_native_empty_input_no_trailing_garbage():
 
 
 def test_native_out_size_hard_cap():
-    """ADVICE r1: an explicit out_size is a hard cap, not a growth hint."""
+    """Regression: an explicit out_size is a hard cap, not a growth hint."""
     if N.lib() is None:
         pytest.skip("no native lib")
     data = b"x" * 10000
     enc = N.deflate(data, 2)
-    with pytest.raises(deflate_tpu.InflateError):
-        deflate_tpu.decompress(enc, out_size=100)
-    assert deflate_tpu.decompress(enc, out_size=10000) == data
+    with pytest.raises(deflate_jax.InflateError):
+        deflate_jax.decompress(enc, out_size=100)
+    assert deflate_jax.decompress(enc, out_size=10000) == data

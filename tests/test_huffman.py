@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from deflate_tpu.ops import huffman as H
-from deflate_tpu.utils import tables as T
+from deflate_jax.ops import huffman as H
+from deflate_jax.utils import tables as T
 
 
 def _rev(c, n):

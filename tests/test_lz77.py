@@ -3,8 +3,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from deflate_tpu.ops import lz77 as LZ
-from deflate_tpu.utils.tables import BLOCK_SIZE
+import corpus
+from deflate_jax.ops import lz77 as LZ
+from deflate_jax.utils.tables import BLOCK_SIZE
 
 
 def _reconstruct(block, blen, length, dist, mark):
@@ -57,8 +58,10 @@ def test_tokens_reconstruct_input(name, lazy):
 
 
 def test_reference_corpus_file():
-    data = open("/root/reference/test.bmp", "rb").read()
-    assert len(data) == 21898
+    """The bitmap fixture (row-stride repeats) parses into tokens that
+    rebuild it."""
+    data = corpus.picture_bitmap()
+    assert len(data) == 21654
     assert _run(data, K=8, lazy=True) == data
 
 

@@ -4,8 +4,9 @@ import zlib
 import numpy as np
 import pytest
 
-import deflate_tpu
-from deflate_tpu import native as N
+import corpus
+import deflate_jax
+from deflate_jax import native as N
 
 pytestmark = pytest.mark.skipif(N.lib() is None,
                                 reason="native toolchain unavailable")
@@ -40,10 +41,13 @@ def test_deflate_roundtrip(name, level):
 
 
 def test_beats_reference_sizes():
-    tb = open("/root/reference/test.bmp", "rb").read()
-    assert len(N.deflate(tb, 3)) <= 3124          # reference L3
-    tiny = open("/root/reference/tiny.bmp", "rb").read()
-    assert len(N.deflate(tiny, 3)) <= 67
+    """Native L3 on the bitmap fixtures, gated against zlib -9 (the
+    reference's own L3 came within 7.4% of zlib -9 on its test image)."""
+    tb = corpus.picture_bitmap()
+    z9 = len(zlib.compress(tb, 9)) - 6
+    assert len(N.deflate(tb, 3)) <= 1.045 * z9
+    tiny = corpus.tiny_bitmap()
+    assert len(N.deflate(tiny, 3)) <= len(zlib.compress(tiny, 9)) - 6 + 2
 
 
 def test_adler32_matches_zlib():
@@ -62,9 +66,9 @@ def test_corrupt_stream_raises():
 def test_public_api_backends():
     data = b"backend test " * 500
     for backend in ("native", "auto"):
-        enc = deflate_tpu.compress(data, 2, backend=backend)
+        enc = deflate_jax.compress(data, 2, backend=backend)
         assert zlib.decompress(enc, -15) == data
-    assert deflate_tpu.decompress(zlib.compress(data, 9)[2:-4]) == data
+    assert deflate_jax.decompress(zlib.compress(data, 9)[2:-4]) == data
 
 
 class TestSanitizers:
@@ -80,7 +84,7 @@ class TestSanitizers:
         import subprocess
 
         d = os.path.join(os.path.dirname(__file__), "..",
-                         "deflate_tpu", "native")
+                         "deflate_jax", "native")
         r = subprocess.run(["make", "-s", "-C", d, "asan_fuzz"],
                            capture_output=True, timeout=180, text=True)
         assert r.returncode == 0, r.stderr
@@ -95,7 +99,7 @@ class TestSanitizers:
         or a DT error), never crash or hang."""
         import numpy as np
 
-        from deflate_tpu import native as N
+        from deflate_jax import native as N
         if N.lib() is None:
             import pytest as _p
             _p.skip("native toolchain unavailable")
@@ -112,14 +116,14 @@ class TestSanitizers:
 class TestRfcTableCrossCheck:
     """Drift guard for the three copies of the RFC 1951 normative
     constants: utils/tables.py, native/inflate.cpp, native/deflate.cpp
-    (VERDICT r1/r2 leftover — the duplication is unavoidable, divergence
+    (the duplication is unavoidable, divergence
     is not)."""
 
     def test_native_tables_match_python(self):
         import numpy as np
 
-        from deflate_tpu import native as N
-        from deflate_tpu.utils import tables as T
+        from deflate_jax import native as N
+        from deflate_jax.utils import tables as T
         if N.lib() is None:
             import pytest as _p
             _p.skip("native toolchain unavailable")

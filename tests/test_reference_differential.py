@@ -8,7 +8,8 @@ itself as the second oracle:
   leg B: our compress -> reference-inflate
   leg C: sizes — ours must not exceed the reference's level-3 output
 
-The reference headers are compiled once per session into a tiny CLI.
+The reference headers are compiled once per module into a tiny CLI; the
+tests skip when no reference checkout is available.
 """
 import os
 import subprocess
@@ -17,10 +18,12 @@ import zlib
 import numpy as np
 import pytest
 
-import deflate_tpu
+import deflate_jax
 
-REF = "/root/reference"
-BIN = "/tmp/dtref_cli"
+# The reference's C++ headers and its image corpus, when a checkout of the
+# reference is available: DEFLATE_REFERENCE_DIR=<dir> (with include/ and
+# tiny.bmp / test.bmp).
+REF = os.environ.get("DEFLATE_REFERENCE_DIR", "")
 
 CLI_SRC = r"""
 // Thin CLI over the reference headers (deflate.hpp:798, inflate.hpp:376):
@@ -52,68 +55,71 @@ int main(int argc, char** argv) {
 """
 
 
-def _build_cli():
-    if os.path.exists(BIN):
-        return True
-    with open("/tmp/dtref_cli.cpp", "w") as f:
-        f.write(CLI_SRC)
+@pytest.fixture(scope="module")
+def ref_cli(tmp_path_factory):
+    """The reference CLI, built once per module; skips when the
+    reference's headers are not available."""
+    if not REF or not os.path.isdir(os.path.join(REF, "include")):
+        pytest.skip("reference headers not available "
+                    "(set DEFLATE_REFERENCE_DIR)")
+    d = tmp_path_factory.mktemp("refcli")
+    (d / "cli.cpp").write_text(CLI_SRC)
     r = subprocess.run(
         ["g++", "-O2", "-std=c++17", f"-I{REF}/include",
-         "/tmp/dtref_cli.cpp", "-o", BIN],
+         str(d / "cli.cpp"), "-o", str(d / "cli")],
         capture_output=True, text=True)
-    return r.returncode == 0
+    if r.returncode != 0:
+        pytest.skip(f"reference CLI failed to build: {r.stderr[-500:]}")
+    return str(d / "cli")
 
 
-pytestmark = pytest.mark.skipif(not _build_cli(),
-                                reason="reference CLI failed to build")
-
-
-def ref_deflate(data: bytes, level: int = 3) -> bytes:
-    return subprocess.run([BIN, "deflate", str(level)], input=data,
+def ref_deflate(cli, data: bytes, level: int = 3) -> bytes:
+    return subprocess.run([cli, "deflate", str(level)], input=data,
                           capture_output=True, check=True).stdout
 
 
-def ref_inflate(data: bytes) -> bytes:
-    return subprocess.run([BIN, "inflate"], input=data,
+def ref_inflate(cli, data: bytes) -> bytes:
+    return subprocess.run([cli, "inflate"], input=data,
                           capture_output=True, check=True).stdout
 
 
-CORPUS = {
-    "tiny.bmp": open(f"{REF}/tiny.bmp", "rb").read(),
-    "test.bmp": open(f"{REF}/test.bmp", "rb").read(),
-    "text": bytes(np.random.default_rng(0).integers(97, 120, 40000,
-                                                    dtype=np.uint8)),
-}
+def _corpus(name):
+    if name in ("tiny.bmp", "test.bmp"):
+        with open(os.path.join(REF, name), "rb") as f:
+            return f.read()
+    return bytes(np.random.default_rng(0).integers(97, 120, 40000,
+                                                   dtype=np.uint8))
+
+
+NAMES = ["tiny.bmp", "test.bmp", "text"]
 
 
 @pytest.mark.parametrize(
     "name", ["tiny.bmp", "test.bmp",
              pytest.param("text", marks=pytest.mark.slow)])
-def test_leg_a_reference_stream_our_inflate(name):
-    data = CORPUS[name]
-    stream = ref_deflate(data, 3)
+def test_leg_a_reference_stream_our_inflate(ref_cli, name):
+    data = _corpus(name)
+    stream = ref_deflate(ref_cli, data, 3)
     assert zlib.decompress(stream, -15) == data     # sanity: it's valid
-    assert deflate_tpu.decompress(stream) == data
-    assert deflate_tpu.decompress(stream, device=True,
+    assert deflate_jax.decompress(stream) == data
+    assert deflate_jax.decompress(stream, device=True,
                                   force_device=True) == data
 
 
-@pytest.mark.parametrize("name", list(CORPUS))
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("level", [0, 2, 3])
-def test_leg_b_our_stream_reference_inflate(name, level):
-    data = CORPUS[name]
-    stream = deflate_tpu.compress(data, level)
-    assert ref_inflate(stream) == data
+def test_leg_b_our_stream_reference_inflate(ref_cli, name, level):
+    data = _corpus(name)
+    stream = deflate_jax.compress(data, level)
+    assert ref_inflate(ref_cli, stream) == data
 
 
 @pytest.mark.parametrize("name,bar", [("tiny.bmp", 67), ("test.bmp", 3124)])
-def test_leg_c_size_at_or_below_reference_level3(name, bar):
+def test_leg_c_size_at_or_below_reference_level3(ref_cli, name, bar):
     """The reference's level 3 is its only correct compressor; its sizes
-    are the bar (SURVEY.md §6).  Both backends must beat it outright
-    (the TPU path has since r2 — 2976 vs 3124; VERDICT r3 #7 dropped the
-    former 5% maturation slack)."""
-    data = CORPUS[name]
-    native = deflate_tpu.compress(data, 3, backend="native")
+    are the bar (SURVEY.md §6).  Both backends must beat it outright."""
+    data = _corpus(name)
+    native = deflate_jax.compress(data, 3, backend="native")
     assert len(native) <= bar
-    tpu = deflate_tpu.compress(data, 3)
-    assert len(tpu) <= bar
+    device = deflate_jax.compress(data, 3)
+    assert len(device) <= bar

@@ -6,7 +6,8 @@ import zlib
 import numpy as np
 import pytest
 
-import deflate_tpu
+import corpus
+import deflate_jax
 
 
 def _corpus():
@@ -29,7 +30,7 @@ CORPUS = _corpus()
 @pytest.mark.parametrize("name", list(CORPUS))
 def test_compress_decodes_with_zlib(name, level):
     data = CORPUS[name]
-    enc = deflate_tpu.compress(data, level)
+    enc = deflate_jax.compress(data, level)
     assert zlib.decompress(enc, wbits=-15) == data
 
 
@@ -37,8 +38,8 @@ def test_compress_decodes_with_zlib(name, level):
 @pytest.mark.parametrize("name", ["text", "random", "runs"])
 def test_self_roundtrip(name, level):
     data = CORPUS[name]
-    enc = deflate_tpu.compress(data, level)
-    assert deflate_tpu.decompress(enc, len(data)) == data
+    enc = deflate_jax.compress(data, level)
+    assert deflate_jax.decompress(enc, len(data)) == data
 
 
 @pytest.mark.parametrize("zlevel", [1, 6, 9])
@@ -46,20 +47,20 @@ def test_decompress_zlib_streams(zlevel):
     for name in ("text", "random", "binary_cycle"):
         data = CORPUS[name]
         ref = zlib.compress(data, zlevel)[2:-4]     # raw deflate
-        assert deflate_tpu.decompress(ref, len(data)) == data
+        assert deflate_jax.decompress(ref, len(data)) == data
 
 
 def test_zlib_container_roundtrip():
     data = CORPUS["text"]
-    wrapped = deflate_tpu.compress_zlib(data, 2)
+    wrapped = deflate_jax.compress_zlib(data, 2)
     # their decoder accepts our container
     assert zlib.decompress(wrapped) == data
     # our decoder accepts their container (with checksum verification)
-    assert deflate_tpu.decompress_zlib(zlib.compress(data, 6)) == data
+    assert deflate_jax.decompress_zlib(zlib.compress(data, 6)) == data
     # corrupted checksum is detected
     bad = wrapped[:-1] + bytes([wrapped[-1] ^ 1])
-    with pytest.raises(deflate_tpu.InflateError):
-        deflate_tpu.decompress_zlib(bad)
+    with pytest.raises(deflate_jax.InflateError):
+        deflate_jax.decompress_zlib(bad)
 
 
 def test_multiblock_boundaries():
@@ -68,29 +69,30 @@ def test_multiblock_boundaries():
     base = bytes(rng.integers(0, 200, 70000).astype(np.uint8))
     for size in (32767, 32768, 32769, 65536, 65537):
         data = base[:size]
-        enc = deflate_tpu.compress(data, 2)
+        enc = deflate_jax.compress(data, 2)
         assert zlib.decompress(enc, wbits=-15) == data
 
 
 def test_reference_corpus_zlib_containers():
-    """weird.dat / zlib.dat are zlib streams (SURVEY.md §2.5)."""
+    """zlib containers (SURVEY.md §2.5) written by python zlib at several
+    levels and window sizes, over the bitmap fixtures."""
     import zlib as Z
-    for name in ("weird.dat", "zlib.dat"):
-        raw = open(f"/root/reference/{name}", "rb").read()
-        ours = deflate_tpu.decompress_zlib(raw)
-        theirs = Z.decompress(raw)
-        assert ours == theirs
+    for data in (corpus.picture_bitmap(), corpus.tiny_bitmap() * 50):
+        for level, wbits in ((1, 15), (6, 15), (9, 9), (9, 15)):
+            co = Z.compressobj(level, Z.DEFLATED, wbits)
+            raw = co.compress(data) + co.flush()
+            assert deflate_jax.decompress_zlib(raw) == Z.decompress(raw)
 
 
 def test_incompressible_goes_stored():
     data = CORPUS["random"]
-    enc = deflate_tpu.compress(data, 3)
+    enc = deflate_jax.compress(data, 3)
     # 2 blocks -> at most 5 bytes overhead each + container slack
     assert len(enc) <= len(data) + 12
 
 
 def test_level_validation():
     with pytest.raises(ValueError):
-        deflate_tpu.compress(b"x", 4)
+        deflate_jax.compress(b"x", 4)
     with pytest.raises(ValueError):
-        deflate_tpu.compress(b"x", -1)
+        deflate_jax.compress(b"x", -1)

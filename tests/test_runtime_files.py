@@ -3,7 +3,7 @@ xdist per-file workers stay under the quick-tier wall-time budget)."""
 import numpy as np
 import pytest
 
-import deflate_tpu
+import deflate_jax
 
 
 def test_compress_file_streaming(tmp_path):
@@ -16,11 +16,11 @@ def test_compress_file_streaming(tmp_path):
     dst = tmp_path / "out.deflate"
     src.write_bytes(data)
     # small chunks force multiple segments and bit-tail carries
-    deflate_tpu.compress_file(str(src), str(dst), level=2, chunk_blocks=2)
+    deflate_jax.compress_file(str(src), str(dst), level=2, chunk_blocks=2)
     enc = dst.read_bytes()
     assert zlib.decompress(enc, -15) == data
     # streaming output must equal the one-shot encoder's
-    assert enc == deflate_tpu.compress(data, 2)
+    assert enc == deflate_jax.compress(data, 2)
 
 
 def test_decompress_file_roundtrip(tmp_path):
@@ -29,19 +29,19 @@ def test_decompress_file_roundtrip(tmp_path):
     mid = tmp_path / "a.deflate"
     out = tmp_path / "a.out"
     src.write_bytes(data)
-    deflate_tpu.compress_file(str(src), str(mid), level=3)
-    deflate_tpu.decompress_file(str(mid), str(out))
+    deflate_jax.compress_file(str(src), str(mid), level=3)
+    deflate_jax.decompress_file(str(mid), str(out))
     assert out.read_bytes() == data
 
 
 class TestStreamingDecompressFile:
-    """decompress_file streams in bounded memory (VERDICT missing #7;
-    reference B5 analog: a block spanning a read boundary must work)."""
+    """decompress_file streams in bounded memory (reference B5 analog: a
+    block spanning a read boundary must work)."""
 
     def test_block_spans_read_boundary(self, tmp_path):
         import zlib
 
-        import deflate_tpu as D
+        import deflate_jax as D
         rng = __import__("numpy").random.default_rng(11)
         data = (b"boundary " * 20000
                 + rng.integers(0, 256, 100000, dtype=__import__("numpy")
@@ -54,7 +54,7 @@ class TestStreamingDecompressFile:
         assert dst.read_bytes() == data
 
     def test_own_stream_and_cross_block_history(self, tmp_path):
-        import deflate_tpu as D
+        import deflate_jax as D
         # foreign stream with matches crossing 32 KiB block boundaries
         import zlib
         data = bytes(range(256)) * 600                  # 153600 B periodic
@@ -67,7 +67,7 @@ class TestStreamingDecompressFile:
     def test_truncated_raises(self, tmp_path):
         import zlib
 
-        import deflate_tpu as D
+        import deflate_jax as D
         import pytest as _p
         data = b"will be cut" * 5000
         st = zlib.compress(data, 6)[2:-4]

@@ -3,26 +3,24 @@
 The native skeleton walk (native/inflate.cpp dt_skeleton) cuts any
 conforming raw DEFLATE stream into <=32 KiB virtual blocks with decode
 hints; ops/wave.py decodes them in parallel (synthetic stops for cut
-blocks) and ops/wave_fill.fill_matches_hist resolves matches in stream
-order with a 32 KiB cross-block history window — the reference's
-persistent-window semantics (inflate.hpp:284-305) on the TPU path.
-
-Everything here runs in interpret mode on the CPU mesh (conftest).
+blocks) and ops/fill.fill_matches_hist resolves matches across block
+boundaries — the reference's persistent-window semantics
+(inflate.hpp:284-305) on the device path.
 """
 import zlib
 
 import numpy as np
 import pytest
 
-import deflate_tpu
-from deflate_tpu import native as N
-from deflate_tpu.models import wave_decoder as WD
+import deflate_jax
+from deflate_jax import native as N
+from deflate_jax.models import wave_decoder as WD
 
 
 def _planned(data: bytes, enc: bytes):
     plan = WD.skeleton_plan(enc)
     assert plan is not None
-    out, err = WD.inflate_wave_planned(enc, plan, interpret=True)
+    out, err = WD.inflate_wave_planned(enc, plan)
     assert out is not None and not err.any(), np.nonzero(err)
     assert out == data
     return plan
@@ -33,10 +31,10 @@ class TestSkeletonWalk:
         rng = np.random.default_rng(3)
         data = (rng.integers(97, 110, 50000, dtype=np.uint8).tobytes()
                 + b"hello world " * 2000)
-        enc = deflate_tpu.compress(data, level=2)
+        enc = deflate_jax.compress(data, level=2)
         sk = N.skeleton(enc)
         assert sk is not None and sk["total_out"] == len(data)
-        from deflate_tpu.ops import wave as W
+        from deflate_jax.ops import wave as W
         hints_ref, span_ref = W.hints_from_walk_host(enc, sk["parent_bit"])
         for b in range(len(sk["out_len"])):
             if sk["btype"][b] == 0:
@@ -98,7 +96,7 @@ class TestPlannedDecode:
 
     def test_own_stream_fast_path(self):
         data = b"The quick brown fox jumps over the lazy dog. " * 2000
-        enc = deflate_tpu.compress(data, level=2)
+        enc = deflate_jax.compress(data, level=2)
         plan = _planned(data, enc)
         f = np.asarray(plan["flags"])
         assert ((f & 2) > 0).all() and not ((f & 4) > 0).any()
@@ -116,7 +114,7 @@ class TestPlannedDecode:
                 plan = WD.skeleton_plan(bad)
                 if plan is None:
                     continue
-                WD.inflate_wave_planned(bad, plan, interpret=True)
+                WD.inflate_wave_planned(bad, plan)
             except (ValueError, Exception):
                 pass
 
@@ -124,11 +122,11 @@ class TestPlannedDecode:
 class TestDecompressDeviceWave:
     def test_device_decompress_serves_via_wave(self):
         """decompress(device=True) must reach the wavefront decoder for a
-        bare self-contained stream (VERDICT r2 item #3)."""
+        bare self-contained stream."""
         data = b"The quick brown fox jumps over the lazy dog. " * 2000
-        enc = deflate_tpu.compress(data, level=2)
+        enc = deflate_jax.compress(data, level=2)
         st = {}
-        out = deflate_tpu.decompress(enc, len(data), device=True,
+        out = deflate_jax.decompress(enc, len(data), device=True,
                                      force_device=True, stats=st)
         assert out == data
         assert st["device_path"] == "wave", st
@@ -137,7 +135,7 @@ class TestDecompressDeviceWave:
         data = b"zlib made this stream, not us. " * 6000
         ref = zlib.compress(data, 9)[2:-4]
         st = {}
-        out = deflate_tpu.decompress(ref, len(data), device=True,
+        out = deflate_jax.decompress(ref, len(data), device=True,
                                      force_device=True, stats=st)
         assert out == data
         assert st["device_path"] == "wave", st

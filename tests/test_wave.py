@@ -10,7 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from deflate_tpu.ops import wave as W
+from deflate_jax.ops import wave as W
 
 
 def test_popcount_select_bit32():
@@ -84,10 +84,10 @@ def test_route_monotone(left):
 
 def _encode_own(data, level=2):
     """Encode with the package encoder (self-contained blocks) on CPU."""
-    import deflate_tpu
-    from deflate_tpu.models import encoder as E
-    from deflate_tpu.runtime import stitch as S
-    from deflate_tpu.utils.tables import BLOCK_SIZE
+    import deflate_jax
+    from deflate_jax.models import encoder as E
+    from deflate_jax.runtime import stitch as S
+    from deflate_jax.utils.tables import BLOCK_SIZE
 
     import jax
 
@@ -206,7 +206,7 @@ def test_stage_a_differential():
 
 def _fill_matches_host(litwords, rec0, rec1, nmatch):
     """Host reference of stage G: fill match bytes into literal-placed
-    output (mirrors ops/wave_fill.py)."""
+    output (the oracle for ops/fill.py)."""
     B = litwords.shape[0]
     out = litwords.view(np.uint8).reshape(B, -1).copy()
     for b in range(B):
@@ -235,13 +235,13 @@ def test_wave_decode_end_to_end():
     nwords = W.prepare_windows(stream, md["data_start"], W64)
     mdj = {k: jnp.asarray(v) for k, v in md.items()
            if k.startswith(("l_", "d_"))}
-    from deflate_tpu.utils.tables import BLOCK_SIZE
+    from deflate_jax.utils.tables import BLOCK_SIZE
     B = len(offs)
     exp = np.full(B, BLOCK_SIZE, np.int64)
     exp[-1] = len(data) - (B - 1) * BLOCK_SIZE
     litwords, rec0, rec1, nmatch, produced, err = W.wave_decode(
         jnp.asarray(nwords), jnp.asarray(hints[:, :W64], np.int32),
-        jnp.asarray(exp, np.int32), mdj, W64, interpret=True)
+        jnp.asarray(exp, np.int32), mdj, W64)
     err = np.asarray(err)
     produced = np.asarray(produced)
     assert not err.any(), err
@@ -266,7 +266,7 @@ def test_wave_decode_detects_corruption():
     md = W.parse_headers_host(stream, offs)
     hints, span = W.hints_from_walk_host(stream, offs)
     W64 = 1024
-    from deflate_tpu.utils.tables import BLOCK_SIZE
+    from deflate_jax.utils.tables import BLOCK_SIZE
     B = len(offs)
     exp = np.full(B, BLOCK_SIZE, np.int64)
     exp[-1] = len(data) - (B - 1) * BLOCK_SIZE
@@ -278,16 +278,16 @@ def test_wave_decode_detects_corruption():
     nwords = W.prepare_windows(bytes(bad), md["data_start"], W64)
     *_, err = W.wave_decode(
         jnp.asarray(nwords), jnp.asarray(hints[:, :W64], np.int32),
-        jnp.asarray(exp, np.int32), mdj, W64, interpret=True)
+        jnp.asarray(exp, np.int32), mdj, W64)
     assert np.asarray(err)[0], "corruption must surface in err flag"
 
 
 @pytest.mark.slow
 def test_wave_decoder_model_interpret():
-    """Full model driver: huffman + stored blocks, fill kernel in
-    interpret mode, reassembly in original order."""
-    from deflate_tpu.models import wave_decoder as WD
-    from deflate_tpu.utils.tables import BLOCK_SIZE
+    """Full model driver: huffman + stored blocks, the XLA match fill,
+    reassembly in original order."""
+    from deflate_jax.models import wave_decoder as WD
+    from deflate_jax.utils.tables import BLOCK_SIZE
 
     rng = np.random.default_rng(5)
     data = (b"the quick brown fox jumps over the lazy dog. " * 1200
@@ -297,7 +297,7 @@ def test_wave_decoder_model_interpret():
     B = len(offs)
     exp = np.full(B, BLOCK_SIZE, np.int64)
     exp[-1] = len(data) - (B - 1) * BLOCK_SIZE
-    got, err = WD.inflate_wave(stream, offs, exp, interpret=True)
+    got, err = WD.inflate_wave(stream, offs, exp)
     assert not err.any(), err
     assert got == data
 
@@ -306,9 +306,9 @@ def test_wave_decoder_model_interpret():
 def test_encoder_hints_match_walk():
     """Encoder-emitted decode hints must equal the oracle host walk."""
     import jax
-    from deflate_tpu.models import encoder as E
-    from deflate_tpu.runtime import stitch as S
-    from deflate_tpu.utils.tables import BLOCK_SIZE
+    from deflate_jax.models import encoder as E
+    from deflate_jax.runtime import stitch as S
+    from deflate_jax.utils.tables import BLOCK_SIZE
 
     rng = np.random.default_rng(6)
     data = (rng.integers(97, 123, 60000, dtype=np.uint8).tobytes()
@@ -337,11 +337,10 @@ def test_encoder_hints_match_walk():
             assert (got[b, :4224] == walk[b, :4224]).all(), b
 
     # and the full decode path accepts them
-    from deflate_tpu.models import wave_decoder as WD
+    from deflate_jax.models import wave_decoder as WD
     sizes = lens.astype(np.int64)
     out, err = WD.inflate_wave(stream, offs, sizes,
-                               hints=got.astype(np.uint8),
-                               interpret=True)
+                               hints=got.astype(np.uint8))
     assert not err.any()
     assert out == data
 
@@ -350,7 +349,7 @@ def test_encoder_hints_match_walk():
 def test_manifest_v2_wave_roundtrip():
     """compress_with_manifest v2 hints -> decode_all(device) wave path,
     plus JSON serialization round-trip and v1 compatibility."""
-    from deflate_tpu.runtime import manifest as M
+    from deflate_jax.runtime import manifest as M
 
     rng = np.random.default_rng(8)
     data = (rng.integers(97, 123, 50000, dtype=np.uint8).tobytes()
@@ -362,133 +361,24 @@ def test_manifest_v2_wave_roundtrip():
     man2 = M.Manifest.from_json(man.to_json())
     assert man2.hints == man.hints and man2.blocks == man.blocks
 
-    got = M.decode_all(stream, man2, device=True, interpret=True)
+    got = M.decode_all(stream, man2, device=True)
     assert got == data
     # hintless (v1-style) manifests still decode via the host path
     man_v1 = M.Manifest(man.block_size, man.total_bits, man.blocks, None)
     assert M.decode_all(stream, man_v1, device=False) == data
 
 
-def test_stagea_pallas_equivalence():
-    """ops/wave_stagea.py (Pallas, interpret) is bit-exact vs the XLA
-    stage A (wave.decode_positions) on a real encoded stream."""
-    from deflate_tpu.ops.wave_stagea import decode_positions_pallas
-
-    rng = np.random.default_rng(7)
-    data = (rng.integers(97, 123, 50000, dtype=np.uint8).tobytes()
-            + np.tile(rng.integers(0, 256, 97, dtype=np.uint8),
-                      400).tobytes()
-            + b"a" * 40000)
-    stream, offs = _encode_own(data)
-    md = W.parse_headers_host(stream, offs)
-    _, span = W.hints_from_walk_host(stream, offs)
-    W64 = int(-(-int(span.max()) // 64 // 128) * 128)
-    nwords = jnp.asarray(W.prepare_windows(stream, md["data_start"], W64))
-    mdj = {k: jnp.asarray(v) for k, v in md.items()
-           if k.startswith(("l_", "d_"))}
-    A0x, P1x = W.decode_positions(nwords, mdj, W64)
-    A0p, P1p = decode_positions_pallas(nwords, mdj, W64, interpret=True)
-    assert (np.asarray(A0x) == np.asarray(A0p)).all()
-    assert (np.asarray(P1x) == np.asarray(P1p)).all()
-
-
-def test_stageab_fused_equivalence_quick():
-    """Reduced-shape fused A+B equivalence in the quick tier (ADVICE r4
-    #3): one small W64, 2 blocks — the full sweep stays in slow."""
-    from deflate_tpu.ops.wave_stagea import SUM_KEYS, decode_mark_pallas
-
-    rng = np.random.default_rng(5)
-    data = (rng.integers(97, 123, 2600, dtype=np.uint8).tobytes()
-            + np.tile(rng.integers(0, 256, 53, dtype=np.uint8),
-                      40).tobytes())
-    stream, offs = _encode_own(data)
-    md = W.parse_headers_host(stream, offs)
-    hints, span = W.hints_from_walk_host(stream, offs)
-    W64 = 128
-    nwords = jnp.asarray(W.prepare_windows(stream, md["data_start"], W64))
-    B = nwords.shape[0]
-    hs = np.full((B, W64), W.HINT_NONE, np.uint8)
-    hs[:, :min(W64, hints.shape[1])] = hints[:, :W64]
-    hsj = jnp.asarray(hs, jnp.int32)
-    mdj = {k: jnp.asarray(v) for k, v in md.items()
-           if k.startswith(("l_", "d_"))}
-
-    A0x, P1x = W.decode_positions(nwords, mdj, W64)
-    sums_x, rk_x = W.chunk_automaton(A0x, hsj, W64)
-    mk_x = W._unpack_marks(sums_x["Mlo"], sums_x["Mhi"], W64) > 0
-    A0cx, P1cx = W.chunk_compact(A0x, P1x, rk_x, mk_x)
-    A0cp, P1cp, sums_p = decode_mark_pallas(
-        nwords, hsj, mdj, W64, None, interpret=True)
-    assert (np.asarray(A0cx) == np.asarray(A0cp)).all()
-    assert (np.asarray(P1cx) == np.asarray(P1cp)).all()
-    for k in SUM_KEYS:
-        assert (np.asarray(sums_x[k]) == np.asarray(sums_p[k])).all(), k
-
-
-@pytest.mark.slow
-def test_stageab_fused_equivalence():
-    """decode_mark_pallas (fused A+B, interpret) matches decode_positions
-    + chunk_automaton bit-exactly, including the stop_bit override."""
-    from deflate_tpu.ops.wave_stagea import SUM_KEYS, decode_mark_pallas
-
-    rng = np.random.default_rng(11)
-    data = (rng.integers(97, 123, 50000, dtype=np.uint8).tobytes()
-            + np.tile(rng.integers(0, 256, 97, dtype=np.uint8),
-                      300).tobytes())
-    stream, offs = _encode_own(data)
-    md = W.parse_headers_host(stream, offs)
-    hints, span = W.hints_from_walk_host(stream, offs)
-    W64 = int(-(-int(span.max()) // 64 // 128) * 128)
-    nwords = jnp.asarray(W.prepare_windows(stream, md["data_start"], W64))
-    B = nwords.shape[0]
-    hs = np.full((B, W64), W.HINT_NONE, np.uint8)
-    hs[:, :min(W64, hints.shape[1])] = hints[:, :W64]
-    hsj = jnp.asarray(hs, jnp.int32)
-    mdj = {k: jnp.asarray(v) for k, v in md.items()
-           if k.startswith(("l_", "d_"))}
-
-    for stop in (None, jnp.asarray(
-            np.where(np.arange(B) % 2 == 0, 777, -1), jnp.int32)):
-        A0x, P1x = W.decode_positions(nwords, mdj, W64)
-        if stop is not None:
-            pos = (jnp.arange(W64, dtype=jnp.int32)[None, None, :] * 64
-                   + jnp.arange(64, dtype=jnp.int32)[None, :, None])
-            A0x = jnp.where(pos == stop[:, None, None], 1 | (2 << 15),
-                            A0x)
-        sums_x, rk_x = W.chunk_automaton(A0x, hsj, W64)
-        mk_x = W._unpack_marks(sums_x["Mlo"], sums_x["Mhi"], W64) > 0
-        A0cx, P1cx = W.chunk_compact(A0x, P1x, rk_x, mk_x)
-        A0cp, P1cp, sums_p = decode_mark_pallas(
-            nwords, hsj, mdj, W64, stop, interpret=True)
-        assert (np.asarray(A0cx) == np.asarray(A0cp)).all()
-        assert (np.asarray(P1cx) == np.asarray(P1cp)).all()
-        for k in SUM_KEYS:
-            assert (np.asarray(sums_x[k]) == np.asarray(sums_p[k])).all(), k
-
-        # chunk_compact invariant vs marks: rank-j symbol of chunk w
-        # lands at [b, j, w]
-        A0n, mkn = np.asarray(A0x), np.asarray(mk_x)
-        A0cn = np.asarray(A0cx)
-        Bn = A0n.shape[0]
-        for b in range(0, Bn, max(1, Bn // 4)):
-            for w in range(0, W64, max(1, W64 // 7)):
-                ts = np.nonzero(mkn[b, :, w])[0]
-                for j, t in enumerate(ts[:W.CCAP]):
-                    assert A0cn[b, j, w] == A0n[b, t, w], (b, w, j)
-
-
 def test_fill_matches_adversarial_overlaps():
-    """Direct stage-G kernel test: every distance class (dist 1,2,3 ->
-    pattern + promotion path; 4..8 -> word-funnel overlap; large),
-    every word phase, short and long lengths — vs the host oracle."""
-    from deflate_tpu.ops import wave_fill as WF
+    """Direct stage-G test of the XLA fill: every distance class (dist
+    1, 2, 3 -> periodic overlaps; 4..8 -> short overlaps; large), every
+    byte phase, short and long lengths — vs the host oracle."""
+    from deflate_jax.ops import fill as F
 
     rng = np.random.default_rng(11)
-    B = WF.K
-    OW = WF.OW
-    lit = rng.integers(-2**31, 2**31, (B, OW), dtype=np.int64)
+    B = 4
+    lit = rng.integers(-2**31, 2**31, (B, F.OW), dtype=np.int64)
     lit = lit.astype(np.int32)
-    rec0 = np.zeros((B, W.NM), np.int32)
+    rec0 = np.full((B, W.NM), -1, np.int32)
     rec1 = np.zeros((B, W.NM), np.int32)
     nmatch = np.zeros(B, np.int32)
     cases = []
@@ -498,8 +388,6 @@ def test_fill_matches_adversarial_overlaps():
             for phase in range(4):
                 cases.append((o + phase, ln, dist))
                 o += ln + phase + 11
-    # distribute across blocks; fresh long dist<4 match at start exercises
-    # the promotion gate (done >= 28 before the word run)
     per = len(cases) // B + 1
     for b in range(B):
         sub = cases[b * per:(b + 1) * per]
@@ -507,11 +395,9 @@ def test_fill_matches_adversarial_overlaps():
             rec0[b, m] = (o_ & 0xFFFF) | ((ln - 3) << 16)
             rec1[b, m] = d
         nmatch[b] = len(sub)
-    recs = np.asarray(WF.pack_fill_recs(jnp.asarray(rec0),
-                                        jnp.asarray(rec1)))
-    got = np.asarray(WF.fill_matches(
-        jnp.asarray(lit), jnp.asarray(recs), jnp.asarray(nmatch), B,
-        interpret=True))
+    got = np.asarray(F.fill_matches(
+        jnp.asarray(lit), jnp.asarray(rec0), jnp.asarray(rec1),
+        jnp.asarray(nmatch)))
     want = _fill_matches_host(lit, rec0, rec1, nmatch)
     gotb = got.view(np.uint8).reshape(B, -1)
     for b in range(B):
